@@ -1,4 +1,4 @@
-"""dddmr_navigation_tpu — a TPU-native 3D mobile-robot navigation framework.
+"""dddmr_navigation_tpu — a JAX 3D mobile-robot navigation framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ``dddmr_navigation`` ROS 2 stack (3D point-cloud navigation: perception /

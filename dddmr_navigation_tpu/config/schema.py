@@ -4,7 +4,7 @@ Field names intentionally match the YAML keys of the reference's canonical
 deployment config (`dddmr_p2p_move_base/config/p2p_move_base_localization.yaml`)
 so reference YAMLs can be ingested directly via :func:`load_yaml_config`.
 
-TPU-specific *static shape* knobs (rollout counts, padded plan length, voxel
+*Static shape* knobs (rollout counts, padded plan length, voxel
 window dims, …) live in the same dataclasses but are prefixed with no ROS
 analogue; they are compile-time constants — changing them retriggers jit.
 
@@ -87,7 +87,7 @@ class DDSimpleGeneratorConfig:
     sim_granularity: float = 0.05
     angular_sim_granularity: float = 0.025
     cuboid: CuboidConfig = CuboidConfig()
-    # --- TPU static shapes ---
+    # --- static shapes (padded sizes that fix the compiled program) ---
     max_num_steps: int = 64   # pad per-sample variable num_steps up to this
 
     @property
@@ -156,7 +156,7 @@ class CriticsConfig:
 
 @dataclass(frozen=True)
 class LocalPlannerConfig:
-    """Reference `local_planner` node params + TPU shapes."""
+    """Reference `local_planner` node params + static shapes."""
     forward_prune: float = 3.0
     backward_prune: float = 1.0
     heading_tracking_distance: float = 0.5
@@ -175,7 +175,7 @@ class LocalPlannerConfig:
         stick_path=None, pure_pursuit=None, toward_global_plan=None,
         shortest_angle=CriticConfig(plugin="mpc_critics::ShortestAngleModel", weight=1.0),
     )
-    # --- TPU static shapes ---
+    # --- static shapes (padded sizes that fix the compiled program) ---
     max_plan_len: int = 512       # padded global-plan pose count
     max_prune_len: int = 128      # padded prune-plan pose count
     max_obstacle_points: int = 2048  # padded aggregated-observation size
@@ -185,9 +185,6 @@ class LocalPlannerConfig:
     # nearest-K obstacle pre-prune for the collision critic (0 = off);
     # exact whenever ≤ K obstacles lie within the rollout sweep's reach
     collision_near_k: int = 0
-    # collision sweep backend: xla | auto (Pallas on TPU) |
-    # pallas | pallas_interpret (ops/collision.py)
-    collision_backend: str = "xla"
 
 
 @dataclass(frozen=True)
@@ -200,7 +197,7 @@ class StaticLayerConfig:
     intensity_search_punish_weight: float = 0.1
     static_imposing_radius: float = 1.5
     enable_edge_detection: bool = True
-    # TPU static shapes
+    # static shapes
     max_ground_neighbors: int = 16   # K for the kNN ground graph
 
 
@@ -222,7 +219,7 @@ class SpinningLidarConfig:
     euclidean_cluster_extraction_tolerance: float = 0.1
     euclidean_cluster_extraction_min_cluster_size: int = 1
     stitcher_num: int = 0     # accumulate last N sweeps (0 = off)
-    # TPU static shapes
+    # static shapes
     max_scan_points: int = 8192
     range_image_rows: int = 16
     range_image_cols: int = 360
@@ -241,7 +238,7 @@ class PerceptionConfig:
     static_layer: StaticLayerConfig = StaticLayerConfig()
     lidar: SpinningLidarConfig = SpinningLidarConfig()
     path_blocked_check_radius: float = 0.3
-    # TPU static shapes
+    # static shapes
     max_marked_voxels: int = 2048  # padded active-marking set per tick
     # padded near-window ground-node budget for the dGraph recompute
     # (size to the nodes inside the marking window + inflation_radius;
@@ -258,10 +255,10 @@ class PerceptionConfig:
 
 @dataclass(frozen=True)
 class GlobalPlannerConfig:
-    """Reference `global_planner` node params + TPU shapes."""
+    """Reference `global_planner` node params + static shapes."""
     turning_weight: float = 0.1
     a_star_expanding_radius: float = 0.5
-    # TPU static shapes
+    # static shapes
     max_path_len: int = 512        # padded node-path length
     max_relax_iters: int = 1024    # wavefront relaxation bound
     interpolation_step: float = 0.05  # getROSPath pose interpolation
@@ -357,7 +354,7 @@ class MCLConfig:
     # feature preprocessing (`cbLeGoFeatureCloud`, `mcl_3dl.cpp:300-443`)
     euc_cluster_distance: float = 0.8
     euc_cluster_min_size: int = 3
-    # TPU static shapes
+    # static shapes
     max_feature_points: int = 1024
 
 
@@ -392,7 +389,7 @@ class SlamConfig:
     history_keyframe_search_num: int = 5
     history_keyframe_fitness_score: float = 0.5
     ground_voxel_size: float = 0.4
-    # TPU static shapes
+    # static shapes
     max_sharp: int = 64          # 2/sector × 6 sectors × 16 rings = 192 cap
     max_less_sharp: int = 512
     max_flat: int = 256

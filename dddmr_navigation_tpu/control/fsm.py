@@ -87,7 +87,8 @@ def init_fsm_state(now=0.0) -> FSMState:
     return FSMState(
         decision=jnp.asarray(Decision.D_INITIAL, jnp.int32),
         last_valid_plan=t, last_valid_control=t, last_oscillation_reset=t,
-        oscillation_pos=jnp.zeros(3), oscillation_yaw=jnp.asarray(0.0),
+        oscillation_pos=jnp.zeros(3),
+        oscillation_yaw=jnp.asarray(0.0, jnp.float32),
         waiting_time=t, no_plan_recovery_count=jnp.asarray(0, jnp.int32))
 
 

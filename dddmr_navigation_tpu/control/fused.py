@@ -96,6 +96,7 @@ class FusedOut(NamedTuple):
     vx: jnp.ndarray
     wz: jnp.ndarray
     state: jnp.ndarray          # PlannerState code
+    best_index: jnp.ndarray     # chosen rollout sample
     best_cost: jnp.ndarray
     plan: GlobalPlan            # this tick's interpolated global plan
     plan_ok: jnp.ndarray        # global planner succeeded
@@ -464,7 +465,7 @@ def fused_post_plan(nav_cfg: NavigationConfig, generator: str,
         generator=generator)
 
     out = FusedOut(vx=cmd.vx, wz=cmd.wz, state=cmd.state,
-                   best_cost=cmd.best_cost, plan=plan, plan_ok=res.ok,
+                   best_index=cmd.best_index, best_cost=cmd.best_cost, plan=plan, plan_ok=res.ok,
                    composed_dgraph=pre.composed, obs=obs, obs_mask=obs_mask,
                    wf_iters=res.iters)
     return FusedState(marking=pre.marking, wf_dist=res.dist_carry,
@@ -480,8 +481,9 @@ def fleet_interpolate_path_device(ground, res, *, max_plan_len: int,
                                   ) -> GlobalPlan:
     """Robot-batched `interpolate_path_device` with the output compaction
     as ONE flat 1-D scatter (robot-offset target indices): under vmap the
-    per-robot (L·E → max_plan_len) scatter lowers to the pathological
-    batched scatter path (~10 ms of the 64-robot tick). Emission logic,
+    per-robot (L·E → max_plan_len) scatter lowers to a batched scatter,
+    which was slow before the port to the H100 (not re-measured there).
+    Emission logic,
     constants, and results are element-for-element identical; ``res`` is
     a robot-batched GlobalPathResult."""
     R, L = res.node_ids.shape

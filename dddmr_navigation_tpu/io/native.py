@@ -1,8 +1,9 @@
 """ctypes bindings for the native host runtime (native/dddmr_host.cpp):
 C++ PCD loading, spatial-hash kNN graph construction, and the SPSC ring
-transport. Auto-builds the shared library on first use (g++ is part of
-the toolchain); every entry point has a NumPy/SciPy fallback so the pure-
-Python path keeps working where a compiler is unavailable.
+transport. The shared library is not committed: it is built from
+native/dddmr_host.cpp (``sh native/build.sh``) on first use, and rebuilt
+when the source is newer. Every entry point has a NumPy/SciPy fallback so
+the pure-Python path keeps working where a compiler is unavailable.
 """
 from __future__ import annotations
 
@@ -25,11 +26,13 @@ def _load():
         if _LIB is not None:
             return _LIB
         so = os.path.join(_NATIVE_DIR, "libdddmr_host.so")
-        if not os.path.exists(so):
+        src = os.path.join(_NATIVE_DIR, "dddmr_host.cpp")
+        if (not os.path.exists(so)
+                or os.path.getmtime(so) < os.path.getmtime(src)):
             try:
                 subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
                                check=True, capture_output=True, timeout=120)
-            except Exception:
+            except (OSError, subprocess.SubprocessError):
                 _LIB = False
                 return _LIB
         try:

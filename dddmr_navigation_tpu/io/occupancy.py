@@ -1,4 +1,4 @@
-"""2D occupancy ↔ 3D map clouds — the TPU framework's equivalent of
+"""2D occupancy ↔ 3D map clouds — this framework's equivalent of
 `global_planner/utils/occupancy2ground.cpp:60-250` (occupancy → synthetic
 ground/wall clouds, which lets the 3D stack run on plain 2D maps like
 `data/warehouse.pgm`) and of

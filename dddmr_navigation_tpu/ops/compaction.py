@@ -1,11 +1,10 @@
 """First-k true-index compaction.
 
-``jnp.nonzero(mask, size=k)`` lowers to a window-length cumsum + scatter;
-on TPU the scatter serializes and showed up as ~3.5 ms per call at
-128³-class windows in the fused-vertical trace (three calls per tick).
+``jnp.nonzero(mask, size=k)`` lowers to a window-length cumsum + scatter.
 ``lax.top_k`` over the negated index reproduces the EXACT same result —
-the first k true indices in ascending order, -1 padded — through the
-optimized sort unit instead.
+the first k true indices in ascending order, -1 padded — without the
+scatter, which serialized on the accelerator this was first written for.
+Chosen before the port to the H100; not re-measured there.
 
 Bit-compatibility: scores are unique (one per index), so top_k's order is
 deterministic and equals nonzero's ascending-index order exactly; every

@@ -1,11 +1,11 @@
 """Multi-robot / multi-scenario batching and sharding.
 
-The reference runs ONE robot per process tree (ROS nodes + DDS). The TPU
-build's scaling axis is data-parallel **scenarios**: every per-robot pytree
-gains a leading batch axis via `vmap`, and the batch is sharded across
-chips with `jax.sharding` (BASELINE.json configs 4-5: 64 robots on one
-host, 4096 scenarios across hosts). Cost/argmin reductions ride ICI via
-XLA collectives inside `shard_map` (SURVEY.md §2.12).
+The reference runs ONE robot per process tree (ROS nodes + DDS). Here the
+scaling axis is data-parallel **scenarios**: every per-robot pytree gains
+a leading batch axis via `vmap`, and the batch is sharded across devices
+with `jax.sharding` (BASELINE.json configs 4-5: 64 robots on one host,
+4096 scenarios across hosts). Cost/argmin reductions are XLA collectives
+inside `shard_map` (SURVEY.md §2.12).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ def sharded_fleet_tick(cfg: LocalPlannerConfig, mesh: Mesh,
 
     The returned callable maps sharded per-robot inputs to sharded
     commands plus a *replicated* fleet health scalar (mean best cost over
-    non-rejected robots) — the cross-chip `psum` exercising ICI, the
+    non-rejected robots) — the cross-device `psum`, the
     analogue of the reference's central move-base monitoring.
     """
     from jax import shard_map
@@ -459,6 +459,9 @@ def fleet_full_tick(nav_cfg, mb_cfg, spec, ri_spec, params, fmap, state,
             "decision": fsm2.decision,
             "cmd_source": fout.cmd_source, "ps_simple": out.state,
             "ps_rotate": cmd_rot.state, "plan_ok": out.plan_ok,
+            "plan_len": out.plan.count,
+            "best_index": out.best_index, "best_cost": out.best_cost,
+            "rot_index": cmd_rot.best_index, "rot_cost": cmd_rot.best_cost,
             "recovery_active": rec_active, "recovery_succeed": rec_succeed,
             "wf_iters": out.wf_iters,
             "init_aligned": init_aligned, "goal_aligned": goal_aligned,

@@ -1,22 +1,19 @@
 """Multi-host scaling scaffolding — BASELINE.json config 5 (4096
-scenarios across N≥2 hosts) and SURVEY.md §2.12's "required first-class
-TPU components": `jax.distributed.initialize` launch, a (hosts × local
-devices) mesh whose host axis rides DCN and local axis rides ICI, and
-scenario sharding over both.
+scenarios across N≥2 hosts): `jax.distributed.initialize` launch, a
+(hosts × local devices) mesh, and scenario sharding over both axes.
 
 The reference's "distributed" layer is ROS 2 DDS pub/sub between
 processes on one machine (`rtps_udp_profile.xml`); it has no multi-node
 compute. Here scenarios are pure data-parallel, so the mesh is
-(dcn: n_hosts, ici: devices_per_host) with the scenario batch sharded
-over BOTH axes flattened; cost reductions `psum` over ici first, dcn
-second — XLA lowers that to an ICI all-reduce per host plus one small
-DCN all-reduce, the canonical hierarchical-reduction layout.
+(hosts: n_hosts, devices: devices_per_host) with the scenario batch
+sharded over BOTH axes flattened; cost reductions `psum` over the local
+devices first and across hosts second, so only one small reduction
+crosses between hosts.
 
 Single-process virtual-device testing: `make_host_mesh(n_hosts=2,
 devices_per_host=4)` reshapes 8 forced CPU devices into the same mesh,
 so the multi-host program compiles and runs without a cluster
-(SURVEY.md §4: multi-host tests via
-`--xla_force_host_platform_device_count` fakes).
+(`--xla_force_host_platform_device_count` fakes).
 """
 from __future__ import annotations
 
@@ -27,8 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-DCN_AXIS = "dcn"   # across hosts
-ICI_AXIS = "ici"   # across chips within a host
+HOST_AXIS = "hosts"       # across hosts
+DEVICE_AXIS = "devices"   # across the devices of one host
 
 
 def initialize_distributed(coordinator_address: str | None = None,
@@ -58,13 +55,13 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 def make_host_mesh(n_hosts: int | None = None,
                    devices_per_host: int | None = None) -> Mesh:
-    """(dcn, ici) mesh over all visible devices.
+    """(hosts, devices) mesh over all visible devices.
 
     In a real multi-process run, `jax.devices()` is globally ordered with
     each process's local devices contiguous, so reshaping to
-    (n_hosts, devices_per_host) puts the host axis on DCN and the local
-    axis on ICI. In single-process testing the same reshape fakes N
-    hosts over virtual devices.
+    (n_hosts, devices_per_host) puts each host's devices on one row. In
+    single-process testing the same reshape fakes N hosts over virtual
+    devices.
     """
     devs = np.asarray(jax.devices())
     if n_hosts is None:
@@ -73,18 +70,18 @@ def make_host_mesh(n_hosts: int | None = None,
         devices_per_host = len(devs) // n_hosts
     devs = devs[: n_hosts * devices_per_host]
     return Mesh(devs.reshape(n_hosts, devices_per_host),
-                axis_names=(DCN_AXIS, ICI_AXIS))
+                axis_names=(HOST_AXIS, DEVICE_AXIS))
 
 
 def scenario_sharding(mesh: Mesh) -> NamedSharding:
-    """Scenario batch axis sharded over hosts × chips flattened."""
-    return NamedSharding(mesh, P((DCN_AXIS, ICI_AXIS)))
+    """Scenario batch axis sharded over hosts × devices flattened."""
+    return NamedSharding(mesh, P((HOST_AXIS, DEVICE_AXIS)))
 
 
 def sharded_fleet_tick_multihost(cfg, mesh: Mesh):
-    """Jitted fleet control tick over the (dcn, ici) mesh: per-robot
-    commands stay sharded; the fleet-health scalar is a hierarchical
-    psum (ici then dcn) — ≥80% scaling needs the big reduction on ICI.
+    """Jitted fleet control tick over the (hosts, devices) mesh:
+    per-robot commands stay sharded; the fleet-health scalar is a
+    hierarchical psum (within each host, then across hosts).
     """
     from jax import shard_map
     from dddmr_navigation_tpu.parallel.fleet import fleet_tick
@@ -95,11 +92,11 @@ def sharded_fleet_tick_multihost(cfg, mesh: Mesh):
         ok = costs >= 0
         local = jnp.stack([jnp.sum(jnp.where(ok, costs, 0.0)),
                            jnp.sum(ok.astype(jnp.float32))])
-        local = jax.lax.psum(local, ICI_AXIS)   # intra-host, wide + fast
-        local = jax.lax.psum(local, DCN_AXIS)   # tiny cross-host residual
+        local = jax.lax.psum(local, DEVICE_AXIS)   # within each host
+        local = jax.lax.psum(local, HOST_AXIS)     # across hosts
         return vx, wz, codes, costs, local[0] / jnp.maximum(local[1], 1.0)
 
-    spec = P((DCN_AXIS, ICI_AXIS))
+    spec = P((HOST_AXIS, DEVICE_AXIS))
     sharded = shard_map(
         tick, mesh=mesh,
         in_specs=(spec, spec, spec, spec),
@@ -111,7 +108,7 @@ def sharded_fleet_tick_multihost(cfg, mesh: Mesh):
 def host_local_batch(mesh: Mesh, tree):
     """Assemble a globally-sharded scenario batch from per-process local
     arrays (`jax.make_array_from_process_local_data`): each host feeds
-    only its own robots' sensors/plans — the data path never crosses DCN.
+    only its own robots' sensors/plans — no robot data crosses hosts.
     Falls back to plain device_put placement in single-process runs.
     """
     sharding = scenario_sharding(mesh)

@@ -1,8 +1,8 @@
-"""Euclidean cluster extraction, TPU-style.
+"""Euclidean cluster extraction, data-parallel style.
 
 The reference segments each scan with PCL's EuclideanClusterExtraction
 (KD-tree flood fill, `multilayer_spinning_lidar.cpp:327-336`) and then
-accepts/rejects whole clusters by centroid tests. On TPU we voxelize the
+accepts/rejects whole clusters by centroid tests. Here we voxelize the
 scan into the perception window and run **connected-component labeling by
 iterative min-label propagation**: every occupied cell starts with its own
 linear index as label; each sweep takes the min label over the
@@ -56,10 +56,9 @@ def label_components(occ, tol_cells: int = 2, num_iters: int = 24):
         # lax.reduce_window(min, SAME, init=big) — SAME pads with the
         # init value, and a shift beyond the edge pads with big here too
         # — but lowers to a handful of fusable slice+min ops instead of
-        # a reduce_window invocation. At fleet scale the reduce_window
-        # form cost ~0.45 ms PER CALL on a (64,32,32,12) pooled grid
-        # (up to 24 sweeps x 3 axes = ~30 ms/tick, the single biggest
-        # op of the whole tick); the shift form fuses into the sweep.
+        # a reduce_window invocation, and fuses into the sweep. At fleet
+        # scale reduce_window was the single biggest op of the tick
+        # before the port to the H100 (not re-measured there).
         out = a
         n = a.shape[axis]
         for d in range(1, tol_cells + 1):
@@ -88,9 +87,8 @@ def label_components(occ, tol_cells: int = 2, num_iters: int = 24):
 
     # Early exit at the label fixpoint: typical scans converge in a few
     # sweeps (propagation covers tol_cells per sweep), while num_iters
-    # stays the worst-case bound for window-spanning clusters — measured
-    # 55 → 8 ms across a 64-robot fleet with small clusters, identical
-    # labels (a fixpoint is a fixpoint).
+    # stays the worst-case bound for window-spanning clusters. Labels are
+    # identical (a fixpoint is a fixpoint).
     labels, _, _ = lax.while_loop(
         cond, body, (labels, jnp.asarray(True), jnp.asarray(0, jnp.int32)))
     return jnp.where(occ, labels, -1)
@@ -152,7 +150,7 @@ def cluster_table(labels, occ, cell_pos, max_clusters: int,
     # Component roots: cells whose label is their own linear index. Their
     # indices, taken in ascending order, ARE the sorted unique labels —
     # nonzero-compaction replaces jnp.unique's full sort of the window
-    # (≈10× cheaper at 128³-class grids). A label chain that failed to
+    # (chosen before the port to the H100; not re-measured). A label chain that failed to
     # converge within num_iters has no root and falls into the overflow
     # bucket below (dropped for a tick, like an overflowed cluster).
     if root_mask is None:
@@ -170,9 +168,9 @@ def cluster_table(labels, occ, cell_pos, max_clusters: int,
     idx = jnp.argmax(eq, axis=1).astype(jnp.int32)
     idx = jnp.where(matched, idx, max_clusters)  # overflow bucket
 
-    # Segment sum as ONE one-hot matmul: a window-sized scatter-add
-    # serializes on TPU (~20 ms at 128x128x44), while the (K, N)x(N, 4)
-    # contraction rides the MXU. The match matrix IS the one-hot (0/1
+    # Segment sum as ONE one-hot matmul instead of a window-sized
+    # scatter-add, which serialized before the port to the H100 (not
+    # re-measured there). The match matrix IS the one-hot (0/1
     # exact in any dtype); HIGHEST keeps the position products exact f32
     # (centroids feed the 0.05 m ground-attach gate).
     vals = jnp.concatenate([

@@ -1,4 +1,4 @@
-"""Depth-camera marking/clearing layer — TPU re-design of
+"""Depth-camera marking/clearing layer — JAX re-design of
 ``perception_3d::DepthCameraLayer`` + ``FrustumUtils``
 (`plugins/depth_camera/depth_camera_layer.cpp:197-620`,
 `frustum_utils.cpp:219-291`).

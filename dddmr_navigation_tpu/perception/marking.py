@@ -1,6 +1,6 @@
 """Dynamic obstacle marking / clearing and the ground-node distance field.
 
-This is the TPU re-design of the reference's `Marking` voxel-hash +
+This is the JAX re-design of the reference's `Marking` voxel-hash +
 `MultiLayerSpinningLidar` mark/clear pipeline + `DynamicGraph`
 ("3D costmap") — `cluster_marking.cpp`, `multilayer_spinning_lidar.cpp`,
 `dynamic_graph.cpp`:
@@ -15,7 +15,7 @@ This is the TPU re-design of the reference's `Marking` voxel-hash +
   incremental dGraph setValue min /  | per-tick recompute of in-window
   removePCPtr restore                |   node distances (exact, no stale
                                      |   mins — see note below)
-  node loop + 3D radius search       | MXU/VPU pairwise (nodes x marks)
+  node loop + 3D radius search       | pairwise matmul (nodes x marks)
 
 Semantics preserved: truncation voxel keys, centroid-based cluster
 rejection thresholds (0.05 m ground-attach, 0.1 m static-match,
@@ -155,10 +155,10 @@ def clear_marked(spec: VoxelSpec, ri_spec: RangeImageSpec,
     Like the reference — which iterates the marked voxel hash, not the
     window (`multilayer_spinning_lidar.cpp:456-628`) — the test runs only
     on the ≤ ``max_marked_voxels`` EXTRACTED marked cells, not all window
-    cells: spherical coordinates for a full 128³-class window cost ~100 ms
-    of TPU gather/transcendental time per tick (measured), vs ~1 ms for
-    the extracted set. The 3×3-bin neighborhood lookup is folded into one
-    min-pool of the (rows, cols) range image (identical result). Cells
+    cells: spherical coordinates for a full 128³-class window cost about
+    100× the extracted set's gather/transcendental work (chosen before the
+    port to the H100; not re-measured there). The 3×3-bin neighborhood
+    lookup is folded into one min-pool of the (rows, cols) range image (identical result). Cells
     beyond the extraction cap are not clear-tested THIS tick, but the
     window starts at ``clear_offset`` (wrapping), which
     `perception_update` advances by the cap every tick — every marked
@@ -262,11 +262,10 @@ def mark_scan(spec: VoxelSpec, params: MarkingParams, grid, origin,
     accept = (sizes > 0) & (~ground_attached) & (~static_hit) & fov_c
 
     # Per-cell accept WITHOUT a window-sized element gather: accept is a
-    # tiny (K,) table, but `accept[cell_idx]` over the whole window costs
-    # ~10 ns/cell of TPU gather latency (measured ~63 ms across a
-    # 64-robot fleet at 64³-class windows). The (cells × K) compare fuses
-    # into one any-reduce that reads cell_idx once — ~1 ms for the same
-    # result.
+    # tiny (K,) table, but `accept[cell_idx]` over the whole window is one
+    # element gather per cell. The (cells × K) compare fuses into one
+    # any-reduce that reads cell_idx once, for the same result (chosen
+    # before the port to the H100; not re-measured there).
     ks = jnp.arange(params.max_clusters)
     cell_accept = jnp.any(
         (cell_idx[..., None] == ks) & accept[None, None, None, :], axis=-1)
@@ -309,14 +308,14 @@ def update_dgraph(spec: VoxelSpec, params: MarkingParams, grid, origin,
 
     # Pairwise (n, k): 3D gate on projected points, XY distance value.
     # |a-b|^2 = |a|^2 + |b|^2 - 2 a.b keeps the (n,k) matrix as the only
-    # large intermediate and routes the cross term through the MXU.
+    # large intermediate and computes the cross term as one matmul.
     # Inputs are recentered on the robot first: at global coordinates of
     # O(100 m) the cancellation otherwise costs centimeters of accuracy.
     def sq_dists(a, b):
         a2 = jnp.sum(a * a, axis=-1)
         b2 = jnp.sum(b * b, axis=-1)
-        # HIGHEST: the TPU MXU multiplies f32 as bf16 by default; the
-        # expansion cancellation needs full f32 cross terms.
+        # HIGHEST: a reduced-precision f32 matmul (TF32 on the GPU) would
+        # break the expansion's cancellation; it needs full f32 terms.
         cross = jnp.dot(a, b.T, preferred_element_type=jnp.float32,
                         precision=jax.lax.Precision.HIGHEST)
         return jnp.maximum(a2[:, None] + b2[None, :] - 2.0 * cross, 0.0)

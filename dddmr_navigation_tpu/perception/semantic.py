@@ -1,4 +1,4 @@
-"""Semantic segmentation → class-labeled point clouds — the TPU
+"""Semantic segmentation → class-labeled point clouds — the JAX
 re-design of ``dddmr_semantic_segmentation``.
 
 The reference runs a DDRNet23-slim TensorRT engine on CUDA
@@ -9,7 +9,8 @@ id). Here:
 
   * the network is a compact dual-resolution DDRNet-style flax module —
     a high-resolution detail branch and a strided context branch with
-    bilateral fusion, bf16 throughout so the convs land on the MXU.
+    bilateral fusion, bf16 throughout so the convs run on the matrix
+    units.
     (Weights train elsewhere; inference is the deployment surface, as
     with the reference's pre-built .trt engine.)
   * :func:`segmentation_to_pointcloud` reproduces the C++ fusion node:
@@ -44,7 +45,7 @@ class ConvBN(nn.Module):
 class DDRNetSlim(nn.Module):
     """Dual-resolution segmentation net (DDRNet23-slim shape class):
     detail branch at 1/8, context branch to 1/32, one bilateral fusion,
-    upsampled logits. Small enough for realtime on one TPU core."""
+    upsampled logits. Small enough for realtime on one device."""
     num_classes: int = 19
     width: int = 32
 
@@ -144,7 +145,7 @@ def segmentation_to_pointcloud(depth, class_mask, fx, fy, cx, cy,
 # ---------------------------------------------------------------------------
 # The reference deploys a PRE-BUILT DDRNet TensorRT engine — its weights
 # story is "bring an engine file" (`scripts/trt_interface.py:16-30`). The
-# TPU equivalents: (a) fine-tune/train the flax module here (one fused
+# JAX equivalents: (a) fine-tune/train the flax module here (one fused
 # jitted step; scale = `jax.pmap`/sharding over the batch axis), and
 # (b) serialize/restore params with the runtime checkpoint machinery, the
 # analogue of shipping the .trt file.

@@ -1,5 +1,5 @@
 """Static map context: ground cloud + map cloud preprocessed into
-TPU-friendly lookup structures.
+device-friendly lookup structures.
 
 Replaces the reference's PCL KD-trees over ``mapground``/``mapcloud``
 (`static_layer.cpp:146-199`) with:

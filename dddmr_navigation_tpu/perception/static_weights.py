@@ -1,4 +1,4 @@
-"""Static-layer node weights + overhang lethal — TPU re-design of
+"""Static-layer node weights + overhang lethal — JAX re-design of
 ``StaticLayer::radiusSearchConnection``
 (`plugins/static_layer.cpp:286-421`).
 

@@ -16,7 +16,7 @@ once per lethal-cloud update:
      to S×inscribed long — finer than the reference's stride, never
      coarser for in-budget edges),
   3. count lethal points within 2×inscribed of each sample (one fused
-     (E·S, L) distance matrix — MXU work), blocked when count > 1,
+     (E·S, L) distance matrix), blocked when count > 1,
   4. scatter the verdicts back into a (G, K) edge mask.
 
 The mask ANDs into ``nbr_valid`` for both relaxation and extraction.

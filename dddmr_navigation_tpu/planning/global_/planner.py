@@ -130,8 +130,9 @@ def fleet_plan_finish(cfg: GlobalPlannerConfig, graph_idx, graph_dist,
     """Batched `plan_finish` for a fleet sharing one graph: extraction
     runs NODE-MAJOR (`fleet_extract_path[_turning]`) so the successor
     tables ride shared-index gathers — a vmap of the per-robot extractor
-    pays pathological batched middle-axis gathers instead (measured ~99 ms
-    of the 122 ms 64-robot tick). ``prep_r`` carries a leading robot axis;
+    pays batched middle-axis gathers instead, which dominated the
+    64-robot tick before the port to the H100 (not re-measured there).
+    ``prep_r`` carries a leading robot axis;
     ``dist_r`` is (R, G, B) or (R, G). Returns a robot-batched
     GlobalPathResult."""
     from dddmr_navigation_tpu.planning.global_.wavefront import (

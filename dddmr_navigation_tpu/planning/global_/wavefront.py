@@ -4,7 +4,7 @@ Replaces `A_Star_on_Graph::getPath` (`a_star_on_pc.cpp:200-329`) — a
 sequential best-first expansion with per-pop radius searches — with
 **Bellman–Ford-style parallel relaxation** on the precomputed (G, K)
 neighbor table: every iteration relaxes all nodes at once (one gather +
-min-reduce, pure VPU), converging in O(path-diameter) iterations. The
+min-reduce, elementwise), converging in O(path-diameter) iterations. The
 composite edge cost reproduces `a_star_on_pc.cpp:278-288`:
 
   g += step_dist + exp(-inflation_descending_rate · (dGraph - inscribed))
@@ -92,8 +92,9 @@ def turning_penalty_table(nbr_idx, positions, turning_weight: float):
     """(G, K, K) static table: w_turn·θ for every (arrival edge u→v,
     out-edge v→w) pair, exact reference θ (`theta_reference`) from the
     actual parent. Pure map geometry — compute ONCE at map build and
-    reuse every tick (re-gathering the (G,K,K) position triples per tick
-    measured ~30 ms at 27k nodes; reading this table back is ~0.1 ms)."""
+    reuse every tick instead of re-gathering the (G,K,K) position triples
+    per tick (chosen before the port to the H100; not re-measured
+    there)."""
     safe_idx = jnp.maximum(nbr_idx, 0)
     pos_u = positions[:, None, None, :]                    # (G,1,1,3)
     pos_v = positions[safe_idx][:, :, None, :]             # (G,K,1,3)
@@ -111,8 +112,9 @@ def wavefront_distances_turning(nbr_idx, nbr_dist, nbr_valid, enter_cost,
     is (node, incoming-direction bin), so the reference's parent-angle
     term θ·w_turn (`a_star_on_pc.cpp:284-288`) is carried EXACTLY inside
     the relaxation (up to the incoming-bin quantization of 2π/B; the
-    outgoing leg uses the exact edge azimuth). One extra tensor axis — the
-    TPU answer to a term that breaks plain label-correcting relaxation.
+    outgoing leg uses the exact edge azimuth). One extra tensor axis is
+    the data-parallel answer to a term that breaks plain label-correcting
+    relaxation.
 
     ``dist0`` warm-starts the relaxation from a previous tick's field (see
     :func:`wavefront_distances` for the correctness argument); the
@@ -141,20 +143,21 @@ def wavefront_distances_turning(nbr_idx, nbr_dist, nbr_valid, enter_cost,
         dist0 = jnp.full((g, b), big)
     dist0 = dist0.at[goal_idx, :].set(0.0)
 
-    # XLA's TPU element gather runs at ~10 ns/element, so the loop body
-    # row-gathers the full (B,) bin vector per edge (vectorized rows,
-    # several-fold faster) and selects the edge's arrival bin with a
-    # {0, +inf} masked min — a pure-VPU reduction that returns the bin's
-    # value EXACTLY (x + 0.0 == x), so the result stays bit-identical to
-    # the take_along_axis formulation and the NumPy parity oracle. The
-    # loop-invariant enter-cost gather is hoisted; the remaining additions
-    # keep the original association order (reassociating them drifts the
-    # relaxed field ~3e-3 over the real map's ~300 iterations).
-    # Measured: 62 → 17 ms per full cold relaxation on the ramp-map bench.
-    # The (G,K,B) bin_sel / dtheta tensors are recomputed INSIDE the body
-    # from their (G,K) parents: at real-map scale (27k nodes) reading two
-    # cached (G,K,B) f32 tensors costs ~55 MB of HBM per iteration, while
-    # recomputing them is a handful of VPU ops on fusion-internal values.
+    # The loop body row-gathers the full (B,) bin vector per edge (one
+    # vectorized row instead of single elements) and selects the edge's
+    # arrival bin with a {0, +inf} masked min — an elementwise reduction
+    # that returns the bin's value EXACTLY (x + 0.0 == x), so the result
+    # stays bit-identical to the take_along_axis formulation and the NumPy
+    # parity oracle. The loop-invariant enter-cost gather is hoisted; the
+    # remaining additions keep the original association order
+    # (reassociating them drifts the relaxed field ~3e-3 over the real
+    # map's ~300 iterations). The (G,K,B) bin_sel / dtheta tensors are
+    # recomputed INSIDE the body from their (G,K) parents: at real-map
+    # scale (27k nodes) two cached (G,K,B) f32 tensors are ~55 MB of
+    # device-memory reads per iteration, while recomputing them is a
+    # handful of elementwise ops on fusion-internal values. Row gathers
+    # and recomputation were chosen before the port to the H100; not
+    # re-measured there.
     enter_g = enter_cost[safe_idx]                         # (G, K), hoisted
     bins_iota = jnp.arange(b)
 
@@ -230,8 +233,8 @@ def wavefront_distances(nbr_idx, nbr_dist, nbr_valid, enter_cost, avg_intensity,
     def body(carry):
         dist, _, it = carry
         # Lane-replicate so the neighbor lookup is a vectorized ROW gather
-        # (XLA's TPU element gather runs ~10 ns/element; 8-lane rows cut
-        # that several-fold — same trick as the turning variant above).
+        # instead of single elements — same trick as the turning variant
+        # above (chosen before the port to the H100; not re-measured).
         # The addition order matches the original formulation exactly so
         # the relaxed field stays bit-identical to the parity oracle.
         nd = jnp.broadcast_to(dist[:, None], (g, 8))[safe_idx][:, :, 0]
@@ -259,8 +262,9 @@ def fleet_wavefront_distances_turning(nbr_idx, nbr_dist, nbr_valid_r,
 
     A vmap of :func:`wavefront_distances_turning` makes each robot gather
     its own (G,K,B) neighbor rows — R separate gather passes per
-    iteration, and the gather COUNT is what the relaxation pays for on
-    TPU. Since every robot shares the same ``nbr_idx``, the fleet's
+    iteration, and the gather COUNT is what the relaxation paid for
+    before the port to the H100 (not re-measured). Since every robot
+    shares the same ``nbr_idx``, the fleet's
     fields can ride ONE gather in node-major layout: ``dist`` is
     (G, R, B) and ``dist.reshape(G, R·B)[safe_idx]`` fetches ALL robots'
     bin vectors for a neighbor in a single (R·B)-lane row — the gather
@@ -347,7 +351,7 @@ def fleet_wavefront_distances(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r,
     # update dist[u] = min_v (dist[v] + d_uv + enter[v]) + int[u] becomes
     # F[u] = min_v (F[v] + d_uv) + (int[u] + enter[u]) — the per-neighbor
     # enter gather (a (G, K, R) stream per iteration, ~1/3 of the loop's
-    # HBM traffic at 27k-node fleet scale) collapses into a per-node
+    # device-memory traffic at 27k-node fleet scale) collapses into a per-node
     # constant added AFTER the min. One exact dist-space pass at the end
     # recovers dist for EVERY node — including lethal nodes (enter = inf)
     # where F is inf but dist itself is finite, which the warm-start
@@ -382,17 +386,18 @@ def fleet_wavefront_distances(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r,
 def _walk_table(succ, stuck, e0, stuck0, node_of, start_idx, goal_idx,
                       max_len: int):
     """The greedy-descent walk with a ONE-GATHER body and heavy unroll:
-    ~99 ms of the 122 ms 64-robot fleet tick was the 512-step stepwise
-    walk — per-step op-LAUNCH overhead (its body issued ~6 small ops per
-    iteration), not compute. Terminal states (stuck, or arriving at the
-    goal) are first rewritten to SELF-LOOPS, which moves every per-step
+    the 512-step stepwise walk paid per-step op-LAUNCH overhead (its body
+    issued ~6 small ops per iteration), not compute (chosen before the
+    port to the H100; not re-measured there). Terminal states (stuck, or
+    arriving at the goal) are first rewritten to SELF-LOOPS, which moves every per-step
     decision out of the loop: the body is a single (batched-robot) table
     gather, `unroll=32` amortizes the loop bookkeeping, and the
     valid/length/final bookkeeping is recovered VECTORIZED from the
     emitted state sequence afterwards. (A pointer-doubling variant —
-    O(log L) squared jump tables — was measured and rejected: the
-    per-robot (S,)[(S,)] squarings lower to batched middle-axis gathers,
-    2× SLOWER than the stepwise walk at fleet scale.) Emitted
+    O(log L) squared jump tables — was rejected before the port to the
+    H100: the per-robot (S,)[(S,)] squarings lower to batched middle-axis
+    gathers, slower than the stepwise walk at fleet scale; not
+    re-measured there.) Emitted
     (idxs, valids, length, final) are element-for-element identical to
     the stepwise form: validity is the prefix before the first terminal
     flag, and frozen slots re-emit the freeze node.
@@ -444,14 +449,14 @@ def extract_path_turning(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist_gb,
     parent (`theta_reference`) plus the remaining cost at the successor's
     arrival bin. Returns (indices, valid, length, ok).
 
-    TPU structure: the greedy decision at a node depends only on the edge
+    Structure: the greedy decision at a node depends only on the edge
     just traversed (parent, current) — so the whole decision function is a
     SUCCESSOR TABLE over the (G·K) edge states, built in one vectorized
     pass (the (G, K, K) candidate tensor scores every possible next hop of
     every possible arrival edge, exact reference θ included), and the
     inherently sequential walk collapses to one scalar table lookup per
-    step. Measured on the real 27k-node map: 22 ms of 45 µs/step
-    sequential scoring → ~2 ms. Decisions are identical to the stepwise
+    step (chosen before the port to the H100; not re-measured there).
+    Decisions are identical to the stepwise
     form (same candidate formula, same argmin order). Memory: the build
     is O(G·K²) — fine per-robot; for vmapped fleets prefer
     turning_weight=0 (node-table path below)."""
@@ -503,8 +508,8 @@ def _fleet_walk_table(succ_rs, stuck_rs, e0_r, stuck0_r, node_of,
                       start_idx_r, goal_idx_r, max_len: int):
     """Fleet walk over per-robot successor tables with FLAT global state:
     a vmapped `_walk_table` makes each step's gather a batched
-    middle-axis gather ((R,) picks from (R, S) — the pathological TPU
-    path, ~140 µs per step at 64 robots ≈ 70 ms of the fleet tick). With
+    middle-axis gather ((R,) picks from (R, S)), which lowered to a slow
+    path before the port to the H100 (not re-measured there). With
     states flattened to robot-offset ids in ONE (R·S,) table, each step
     is a plain first-axis 1D gather of (R,) — the fast path. Semantics
     identical to `_walk_table` per robot.
@@ -553,9 +558,9 @@ def fleet_extract_path_turning(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r,
                                turn_pen, *, max_len: int = 512):
     """Fleet successor-table extraction in NODE-MAJOR layout: a vmap of
     :func:`extract_path_turning` makes `dist_gb[safe_idx]` and
-    `score_next[safe_idx]` per-robot batched gathers, which XLA lowers to
-    the pathological middle-axis gather path (~99 ms of the 122 ms
-    64-robot tick — the walk itself was NOT the cost). With the fields
+    `score_next[safe_idx]` per-robot batched gathers, which XLA lowered to
+    a slow middle-axis gather path before the port to the H100 (not
+    re-measured there; the walk itself was not the cost). With the fields
     node-major — (G, R, B) / (G, K, R) — the same tables ride shared-index
     first-axis gathers like the fleet relaxation; only the (cheap) walks
     stay per-robot.
@@ -652,11 +657,11 @@ def extract_path(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist, start_idx,
 
     Returns (indices (max_len,), valid (max_len,), length, ok).
 
-    TPU structure (turning_weight == 0 path): the greedy decision is a
-    pure per-node function, so the successor of EVERY node is computed in
-    one vectorized argmin (a (G, K) candidate tensor) and the sequential
-    walk is a scalar table lookup per step — same decisions, ~10× less
-    per-step latency than in-loop scoring (see extract_path_turning).
+    Structure (turning_weight == 0 path): the greedy decision is a pure
+    per-node function, so the successor of EVERY node is computed in one
+    vectorized argmin (a (G, K) candidate tensor) and the sequential walk
+    is a scalar table lookup per step — same decisions as in-loop scoring
+    (see extract_path_turning).
     """
     g = nbr_idx.shape[0]
     safe_idx = jnp.maximum(nbr_idx, 0)

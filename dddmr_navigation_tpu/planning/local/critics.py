@@ -1,7 +1,6 @@
 """Fused MPC critics: the reference's per-trajectory scoring plugins
 (`mpc_critics/models/*.cpp`) as batched closed-form kernels over all
-rollouts at once. KD-trees are replaced by masked pairwise reductions
-(the cross terms ride the MXU).
+rollouts at once. KD-trees are replaced by masked pairwise reductions.
 
 Stacking semantics (`stacked_scoring_model.cpp:75-97`): critics run in
 order; a negative score rejects the trajectory (short-circuit); otherwise
@@ -35,7 +34,7 @@ class PrunePlan(NamedTuple):
 def _masked_sq_dists(a, a_mask, b, b_mask, big=1e12):
     """(n,m) squared distances with invalid pairs set to ``big``.
 
-    Direct-difference form: the |a|²+|b|²-2ab MXU trick is numerically
+    Direct-difference form: the |a|²+|b|²-2ab matmul trick is numerically
     catastrophic here — plan/trajectory distances are near zero at global
     coordinates of O(10 m), and the cancellation error (amplified
     differently by different compiler FMA/reassociation choices) reaches
@@ -48,8 +47,7 @@ def _masked_sq_dists(a, a_mask, b, b_mask, big=1e12):
 
 
 def collision_scores(r: Rollouts, cuboid: CuboidConfig, obstacles, obs_valid,
-                     obstacle_chunk: int = 256, near_k: int = 0,
-                     backend: str = "xla"):
+                     obstacle_chunk: int = 256, near_k: int = 0):
     """`CollisionModel::scoreTrajectory` (`collision_model.cpp:51-148`):
     -1 when any observed point falls inside the oriented footprint cuboid
     at any valid rollout step; 0 otherwise; 0 when fewer than 5 points.
@@ -98,37 +96,21 @@ def collision_scores(r: Rollouts, cuboid: CuboidConfig, obstacles, obs_valid,
     center_g = (r.positions - r.robot_pos) + quat_rotate(r.robot_quat, rot_z(center_l))
 
     # d = p - center; inside iff |d . axis_k| <= half_k for all k.
-    # Elementwise multiply-reduce (not einsum): the 3-wide contraction
-    # can't feed the MXU, and the elementwise form fuses into the
-    # consumers instead of forcing axes_g to materialize for a dot op.
+    # Elementwise multiply-reduce (not einsum): a 3-wide contraction is
+    # too small for a matrix unit, and the elementwise form fuses into
+    # the consumers instead of forcing axes_g to materialize for a dot op.
     proj_c = jnp.sum(axes_g * center_g[:, :, None, :], axis=-1)  # (S,N,3)
-
-    if backend != "xla":
-        # Fused Pallas sweep (ops/collision.py): obstacle chunks stream
-        # through VMEM, the (S,N,3,M) projection tensor never hits HBM.
-        from dddmr_navigation_tpu.ops.collision import swept_box_hits
-        import numpy as _np
-        corners_np = _np.asarray(cuboid.corners(), _np.float32)
-        half_np = 0.5 * _np.asarray([
-            _np.linalg.norm(corners_np[3] - corners_np[0]),
-            _np.linalg.norm(corners_np[1] - corners_np[0]),
-            _np.linalg.norm(corners_np[2] - corners_np[0])])
-        hit = swept_box_hits(axes_g, proj_c, r.step_valid,
-                             obstacles - r.robot_pos, obs_valid, half_np,
-                             backend=backend)
-        return jnp.where(enough & hit, -1.0, 0.0)
 
     k_total = obstacles.shape[0]
     obs_c = obstacles - r.robot_pos
 
     def axis_inside(pts, mask, step_valid_col):
         """(S,N,C) point-in-box test for one obstacle set, fused
-        per-axis elementwise projections (full-f32 VPU mul-adds, fused by
-        XLA into the compare+reduce): a 3-wide contraction is too small
-        for the MXU, and an einsum formulation forced unfused
-        HIGHEST-precision matmul passes — this form is ~3.4× faster at
-        bench shapes with bit-identical hits (and exact f32 precision,
-        so the bf16-matmul collision-boundary hazard doesn't arise)."""
+        per-axis elementwise projections (f32 mul-adds, fused by XLA into
+        the compare+reduce). Exact f32 by construction, so a reduced-
+        precision matmul cannot move a point across the box boundary.
+        Chosen over an einsum before the port to the H100; not
+        re-measured there."""
         px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]
         inside = None
         for a in range(3):
@@ -139,12 +121,9 @@ def collision_scores(r: Rollouts, cuboid: CuboidConfig, obstacles, obs_valid,
             inside = ok if inside is None else (inside & ok)    # (S,N,C)
         return inside & mask[None, None, :] & step_valid_col
 
-    # Chunked scan over obstacles: measured 1.9 ms vs 3.8 ms for an
-    # unchunked single pass at the 64-robot bench shape (B=64, S=289,
-    # N=40, C=128) — the small-C fusion tiles the (S,N,C) loop onto the
-    # VPU better, and at ~1.3 T-ops/s it runs ABOVE the measured
-    # pure-FMA VPU rate (0.84 TF/s), i.e. at the compute roofline.
-    # Chunk size is insensitive (8..64 all within 10%).
+    # Chunked scan over obstacles: bounds the (S,N,C) intermediate that
+    # one fusion produces. Chunking beat a single pass before the port to
+    # the H100; not re-measured there.
     chunk = min(obstacle_chunk, k_total)
     n_chunks = -(-k_total // chunk)
     pad = n_chunks * chunk - k_total
@@ -289,7 +268,7 @@ def twirling_scores(r: Rollouts, weight: float):
 def score_rollouts(critics: CriticsConfig, cuboid: CuboidConfig, r: Rollouts,
                    plan: PrunePlan, obstacles, obs_valid,
                    heading_deviation=0.0, obstacle_chunk: int = 256,
-                   collision_near_k: int = 0, collision_backend: str = "xla"):
+                   collision_near_k: int = 0):
     """Run the configured critic stack; returns (costs, rejected).
 
     ``costs`` is the summed score for accepted rollouts; rejected rollouts
@@ -310,8 +289,7 @@ def score_rollouts(critics: CriticsConfig, cuboid: CuboidConfig, r: Rollouts,
     if critics.collision is not None:
         apply(collision_scores(r, cuboid, obstacles, obs_valid,
                                obstacle_chunk=obstacle_chunk,
-                               near_k=collision_near_k,
-                               backend=collision_backend)
+                               near_k=collision_near_k)
               * critics.collision.weight)
     if getattr(critics, "collision_min_max", None) is not None:
         apply(collision_min_max_scores(r, cuboid, obstacles, obs_valid,

@@ -100,8 +100,9 @@ def prune_plan(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos,
     start = jnp.argmax(include)  # first included index
     count = jnp.sum(include)
 
-    # The window is contiguous — dynamic_slice (fast sequential DMA)
-    # instead of a (P,)-index gather (slow TPU gather path). Arrays are
+    # The window is contiguous — dynamic_slice (one sequential copy)
+    # instead of a (P,)-index gather (chosen before the port to the H100;
+    # not re-measured there). Arrays are
     # padded by P rows so a window starting near the end never clamps
     # (clamping would misalign slot 0, which critics index by count).
     start = start.astype(jnp.int32)
@@ -255,8 +256,7 @@ def compute_velocity_command(cfg: LocalPlannerConfig, plan: GlobalPlan,
         critics, cuboid, r, pp, obstacles, obs_valid,
         heading_deviation=jnp.asarray(heading_deviation, jnp.float32),
         obstacle_chunk=cfg.collision_obstacle_chunk,
-        collision_near_k=cfg.collision_near_k,
-        collision_backend=cfg.collision_backend)
+        collision_near_k=cfg.collision_near_k)
     idx, cost, found = best_trajectory(costs, rejected)
 
     found_ok = found & prune_ok

@@ -87,7 +87,7 @@ def rollout(samples, sample_valid, robot_pos, robot_quat, *,
     # Closed-form Euler: the reference's update uses the *previous* heading
     # (`computeNewPositions`, `dd_simple_...cpp:457-464`), so
     #   θ_k = k·ω·dt  and  x_k = v·dt·Σ_{j<k} cos(θ_j)
-    # — a cumsum instead of a sequential scan (O(log N) depth on TPU; the
+    # — a cumsum instead of a sequential scan (O(log N) depth; the
     # tree-reduction rounding differs from serial accumulation only at the
     # f32 ulp level).
     j = jnp.arange(max_steps, dtype=jnp.float32)            # θ before step k
@@ -119,8 +119,9 @@ def end_indices(r: Rollouts):
 
 def _end_onehot(r: Rollouts):
     # One-hot select instead of take_along_axis: per-row gathers along a
-    # middle axis lower to pathologically slow TPU gathers (~5 ms at 18k
-    # rollouts); the masked reduction is a fused VPU pass.
+    # middle axis lowered to a slow gather path; the masked reduction is
+    # one fused elementwise pass. Chosen before the port to the H100; not
+    # re-measured there.
     n = r.positions.shape[1]
     idx = jnp.arange(n)
     return (idx[None, :] == end_indices(r)[:, None]).astype(jnp.float32)

@@ -1,4 +1,4 @@
-"""Action contracts + host action transport — the TPU framework's
+"""Action contracts + host action transport — this framework's
 equivalent of ``dddmr_sys_core``'s ROS 2 action layer
 (`action/GetPlan.action`, `action/PToPMoveBase.action`,
 `action/RecoveryBehaviors.action`, `action/TagDocking.action` and the

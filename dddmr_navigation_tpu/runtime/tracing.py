@@ -1,5 +1,5 @@
 """Profiling/observability — SURVEY.md §5: the reference's tracing is
-ad-hoc gettimeofday blocks + rviz visualization topics; the TPU
+ad-hoc gettimeofday blocks + rviz visualization topics; the JAX
 equivalents are ``jax.profiler`` traces and host-side debug dumps.
 
   * :func:`trace` — context manager around a tick window writing a

@@ -2,7 +2,7 @@
 
 The reference ships rviz tools for this role — 3D goal / initial-pose
 tools that raycast onto the point-cloud map and Qt panels
-(`src/dddmr_rviz_tools/`, ~3.4k LoC of Qt/OGRE). The TPU-native stack
+(`src/dddmr_rviz_tools/`, ~3.4k LoC of Qt/OGRE). The JAX stack
 has no ROS graph to visualize, so the equivalent surface is a small HTTP
 server over the session's state snapshots:
 

@@ -1,4 +1,4 @@
-"""Offline pose-graph editing — the TPU framework's equivalent of the
+"""Offline pose-graph editing — this framework's equivalent of the
 reference's pose-graph editor / merge-editor nodes
 (`lego_loam_bor/src/pose_graph_editor/pose_graph_editor.cpp:1-978`,
 `pose_graph_merge_editor.cpp`) and the rviz editor panels

@@ -1,4 +1,4 @@
-"""LOAM feature extraction — TPU re-design of lego_loam's
+"""LOAM feature extraction — JAX re-design of lego_loam's
 ``FeatureAssociation`` front half
 (`lego_loam_bor/src/featureAssociation.cpp:318-520`).
 

@@ -1,4 +1,4 @@
-"""Mapping session — the TPU re-design of lego_loam's node pipeline
+"""Mapping session — the JAX re-design of lego_loam's node pipeline
 (`lego_loam_node.cpp:19-41`: ImageProjection ─Channel→ FeatureAssociation
 ─Channel→ MapOptimization).
 

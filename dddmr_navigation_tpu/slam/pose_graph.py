@@ -1,4 +1,4 @@
-"""Pose-graph optimization — the TPU stand-in for lego_loam's GTSAM
+"""Pose-graph optimization — the JAX stand-in for lego_loam's GTSAM
 iSAM2 back-end (`mapOptimization.cpp:1781-2028`: odometry factors +
 loop-closure edges + incremental update, `addEdgeFromPose` `:1162-1177`,
 `correctPoses` `:1990`).
@@ -13,8 +13,7 @@ batch Gauss-Newton:
     6 numbers (rotvec, translation),
   * Jacobians w.r.t. all pose twists via one ``jax.jacfwd`` over the
     stacked (K, 6) tangent — the factor graph is small (≤256 keyframes),
-    so the dense (6K × 6K) normal system solves in microseconds on the
-    MXU; gauge freedom fixed by anchoring pose 0.
+    so the dense (6K × 6K) normal system is one small solve; gauge freedom fixed by anchoring pose 0.
 """
 from __future__ import annotations
 
@@ -107,8 +106,12 @@ def optimize_pose_graph(g: PoseGraphArrays, iters: int = 8
         free = (g.node_mask & (jnp.arange(k) > 0)).astype(jnp.float32)
         colmask = jnp.repeat(free, 6)
         J = J * colmask[None, :]
-        JtJ = J.T @ J + 1e-5 * jnp.eye(6 * k)
-        step = -jnp.linalg.solve(JtJ, J.T @ rv) * colmask
+        # HIGHEST: f32 products may otherwise run in TF32 on the GPU
+        JtJ = (jnp.matmul(J.T, J, precision=lax.Precision.HIGHEST)
+               + 1e-5 * jnp.eye(6 * k))
+        step = -jnp.linalg.solve(
+            JtJ, jnp.matmul(J.T, rv, precision=lax.Precision.HIGHEST)
+        ) * colmask
         pos, quat = _retract(g.pos, g.quat, step.reshape(k, 6))
         return g._replace(pos=pos, quat=quat)
 

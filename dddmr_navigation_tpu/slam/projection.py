@@ -1,4 +1,4 @@
-"""Range-image projection + ground removal + segmentation — the TPU
+"""Range-image projection + ground removal + segmentation — the JAX
 re-design of lego_loam's ``ImageProjection``
 (`lego_loam_bor/src/imageProjection.cpp:309-660`).
 

@@ -1,4 +1,4 @@
-"""Gauss-Newton lidar odometry — TPU re-design of lego_loam's
+"""Gauss-Newton lidar odometry — JAX re-design of lego_loam's
 scan-to-scan (`featureAssociation.cpp:1254-1460`) and scan-to-map
 (`mapOptimization.cpp:1407-1780`) optimizers, plus the loop-closure ICP
 (`opt_icp_gn/optimized_ICP_GN.cpp:1-137`).
@@ -7,9 +7,9 @@ The reference finds correspondences with per-point KD-tree queries and
 hand-rolls the Jacobians for its camera-frame 6-param transform. Here:
 
   * correspondences are batched brute-force nearest neighbors — an
-    (Ns, Nt) squared-distance matrix whose cross term is one MXU matmul
-    (source/target feature sets are a few hundred points, so this is
-    faster than any tree on TPU),
+    (Ns, Nt) squared-distance matrix whose cross term is one matmul
+    (source/target feature sets are a few hundred points, so a dense
+    matrix needs no tree),
   * residuals are the classic LOAM point-to-line (sharp → 2-NN line in
     target less-sharp) and point-to-plane (flat → 3-NN plane in target
     less-flat) distances,
@@ -37,9 +37,9 @@ from dddmr_navigation_tpu.geometry import (
 
 
 def _sq_dists(a, b):
-    """(Na, Nb) pairwise squared distances; cross term on the MXU.
-    Recentred on the target mean and run at HIGHEST matmul precision:
-    the TPU MXU multiplies f32 as bf16 by default, and |a−b|² by
+    """(Na, Nb) pairwise squared distances; cross term as a matmul.
+    Recentred on the target mean and run at HIGHEST matmul precision: a
+    reduced-precision f32 matmul (TF32 on the GPU) plus |a−b|² by
     expansion cancels catastrophically at map-scale coordinates (the
     error budget here is millimeters against 0.3 m match gates)."""
     c = jnp.mean(b, axis=0)
@@ -117,14 +117,18 @@ def _gn_step(pos, quat, residual_fn, weights, damping=1e-4,
     r = residual_fn(xi0)
     J = jax.jacfwd(residual_fn)(xi0)          # (R, 6)
     w = weights
-    JtJ = (J * w[:, None]).T @ J
-    Jtr = (J * w[:, None]).T @ r
+    # HIGHEST on every f32 product here: the GPU may otherwise run them in
+    # TF32, and the normal equations square the Jacobian's error
+    JtJ = jnp.matmul((J * w[:, None]).T, J, precision=lax.Precision.HIGHEST)
+    Jtr = jnp.matmul((J * w[:, None]).T, r, precision=lax.Precision.HIGHEST)
     JtJ_d = JtJ + lm_lambda * jnp.diag(jnp.diag(JtJ)) + damping * jnp.eye(6)
     xi = -jnp.linalg.solve(JtJ_d, Jtr)
     if degen_thresh is not None:
         evals, evecs = jnp.linalg.eigh(JtJ)
         keep = (evals > degen_thresh).astype(jnp.float32)
-        xi = evecs @ (keep * (evecs.T @ xi))
+        xi = jnp.matmul(evecs, keep * jnp.matmul(
+            evecs.T, xi, precision=lax.Precision.HIGHEST),
+            precision=lax.Precision.HIGHEST)
     rot_n = jnp.linalg.norm(xi[:3])
     trans_n = jnp.linalg.norm(xi[3:])
     scale = jnp.minimum(1.0, jnp.minimum(
@@ -308,7 +312,9 @@ def match_to_map(cfg: SlamConfig, src_sharp, src_sharp_mask, src_flat,
         nn_c = map_sharp[idx_c]                       # (N, 5, 3)
         mean_c = jnp.mean(nn_c, axis=1, keepdims=True)
         cen = nn_c - mean_c
-        cov = jnp.einsum("nki,nkj->nij", cen, cen) / 5.0
+        # HIGHEST: f32 products may otherwise run in TF32 on the GPU
+        cov = jnp.einsum("nki,nkj->nij", cen, cen,
+                         precision=lax.Precision.HIGHEST) / 5.0
         evals, evecs = jnp.linalg.eigh(cov)           # ascending
         principal = evecs[:, :, 2]
         line_ok = evals[:, 2] > 3.0 * evals[:, 1]
@@ -322,7 +328,8 @@ def match_to_map(cfg: SlamConfig, src_sharp, src_sharp_mask, src_flat,
         idx_s, d2_s = _knn(pf, map_flat, map_flat_mask, 5)
         nn_s = map_flat[idx_s]                        # (N, 5, 3)
         # solve A n = -1  (plane n·x + 1 = 0)
-        AtA = jnp.einsum("nki,nkj->nij", nn_s, nn_s)
+        AtA = jnp.einsum("nki,nkj->nij", nn_s, nn_s,
+                         precision=lax.Precision.HIGHEST)
         Atb = -jnp.sum(nn_s, axis=1)
         n_vec = jnp.linalg.solve(
             AtA + 1e-6 * jnp.eye(3)[None], Atb[:, :, None])[:, :, 0]
@@ -330,7 +337,8 @@ def match_to_map(cfg: SlamConfig, src_sharp, src_sharp_mask, src_flat,
         unit_n = n_vec / jnp.maximum(n_norm, 1e-9)
         d_plane = 1.0 / jnp.maximum(n_norm[:, 0], 1e-9)
         # all 5 supports within 0.2 m of the fitted plane
-        support_d = jnp.abs(jnp.einsum("nki,ni->nk", nn_s, unit_n)
+        support_d = jnp.abs(jnp.einsum("nki,ni->nk", nn_s, unit_n,
+                                       precision=lax.Precision.HIGHEST)
                             + d_plane[:, None])
         plane_ok = jnp.all(support_d < 0.2, axis=1)
         w_s = (src_flat_mask & plane_ok & (d2_s[:, 4] < 1.0)
@@ -344,7 +352,8 @@ def match_to_map(cfg: SlamConfig, src_sharp, src_sharp_mask, src_flat,
             perp = v - jnp.sum(v * dn, axis=-1, keepdims=True) * dn
             rc = _safe_norm(perp)
             pfp = _twist_apply(xi, pos, quat, src_flat)
-            rs = jnp.einsum("ni,ni->n", pfp, unit_n) + d_plane
+            rs = jnp.einsum("ni,ni->n", pfp, unit_n,
+                            precision=lax.Precision.HIGHEST) + d_plane
             return jnp.concatenate([rc, rs])
 
         w = jnp.concatenate([w_c, w_s])

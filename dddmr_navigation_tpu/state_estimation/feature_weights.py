@@ -1,4 +1,4 @@
-"""Per-scan feature-weight preprocessing for MCL — the TPU re-design of
+"""Per-scan feature-weight preprocessing for MCL — the JAX re-design of
 ``MCL3dlNode::cbLeGoFeatureCloud``'s reweighting stage
 (`src/mcl_3dl.cpp:300-443`).
 
@@ -70,7 +70,9 @@ def knn_normals(pts, mask, k: int = 5):
     _, idx = jax.lax.top_k(-d2, k)                   # (P, k) nearest
     nbrs = pts[idx]                                  # (P, k, 3)
     c = nbrs - jnp.mean(nbrs, axis=1, keepdims=True)
-    cov = jnp.einsum("pki,pkj->pij", c, c)
+    # HIGHEST: f32 products may otherwise run in TF32 on the GPU
+    cov = jnp.einsum("pki,pkj->pij", c, c,
+                     precision=jax.lax.Precision.HIGHEST)
     # smallest-eigenvector via eigh (P tiny: ≤ a few hundred)
     _, vecs = jnp.linalg.eigh(cov)
     n = vecs[:, :, 0]

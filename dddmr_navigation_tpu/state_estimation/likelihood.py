@@ -1,4 +1,4 @@
-"""Lidar measurement likelihood — TPU re-design of the reference's
+"""Lidar measurement likelihood — JAX re-design of the reference's
 ``LidarMeasurementModelLikelihood::measure``
 (`src/lidar_measurement_model_likelihood.cpp:86-253`).
 
@@ -52,6 +52,11 @@ class DistanceField(NamedTuple):
     dist: jnp.ndarray    # (Nx, Ny, Nz) f32 distance to nearest cloud point
     origin: jnp.ndarray  # (3,) f32 world position of voxel center (0,0,0)
     res: float           # static
+    # host-computed f32(1/res): cell coordinates are ``(p - origin) *
+    # inv_res``, one correctly rounded multiply on every backend (the GPU
+    # divides by multiplying with a reciprocal, which moves points that
+    # lie exactly on a cell boundary into the neighbouring cell)
+    inv_res: float
     packed: object = None   # (Nx, Ny, ceil(Nz/8), 8) or None
     near_pt: object = None  # (Nx, Ny, Nz, 4) or None
 
@@ -65,7 +70,13 @@ class SubmapContext(NamedTuple):
     ground_normal: jnp.ndarray  # (Nx, Ny, 3) f32 avg normal within search radius
     ground_count: jnp.ndarray   # (Nx, Ny) i32 ground points within search radius
     ground_xy_res: float
+    ground_xy_inv_res: float       # host-computed f32(1/res), see DistanceField
     ground_xy_origin: jnp.ndarray  # (2,)
+
+
+def _inv(res) -> float:
+    """f32(1/res), rounded once on the host."""
+    return float(np.float32(1.0) / np.float32(res))
 
 
 def _pack_z(edt: np.ndarray) -> np.ndarray:
@@ -144,7 +155,7 @@ def build_distance_field(points: np.ndarray, res: float, pad: float,
             ~occ, sampling=res).astype(np.float32)
     return DistanceField(dist=jnp.asarray(edt),
                          origin=jnp.asarray(origin),
-                         res=float(res),
+                         res=float(res), inv_res=_inv(res),
                          packed=jnp.asarray(_pack_z(edt)) if pack else None,
                          near_pt=near_pt)
 
@@ -154,27 +165,26 @@ def sample_distance(field: DistanceField, pts, method: str = "trilinear"):
     clamped border value plus the out-of-bounds offset is returned
     (distance lower bound, monotone — far points score 0).
 
-    ``method='nearest'`` reads ONE cell instead of eight: TPU gathers
-    cost ~10 ns/element, and at fleet scale (64 robots × 60 particles ×
-    hundreds of features) the eight trilinear corner gathers are the
-    dominant cost of the whole MCL stage (measured ~0.24 s/tick). The
+    ``method='nearest'`` reads ONE cell instead of eight: at fleet scale
+    (64 robots × 60 particles × hundreds of features) the eight trilinear
+    corner gathers dominated the whole MCL stage before the port to the
+    H100 (not re-measured there). The
     nearest read quantizes distances to ±res/2 (0.075 m at the default
     0.15 m raster) — inside the quadratic score with a 0.3 m match gate
     this adds noise comparable to the sensor model's own, a documented
     speed/precision trade for large fleets."""
-    g = (pts - field.origin) / field.res
+    g = (pts - field.origin) * field.inv_res
     dims = jnp.asarray(field.dist.shape, jnp.float32)
     gc = jnp.clip(g, 0.0, dims - 1.0 - 1e-4)
     if method == "nearest":
         i = jnp.round(gc).astype(jnp.int32)
         i = jnp.minimum(i, jnp.asarray(field.dist.shape, jnp.int32) - 1)
         # 8-lane z-row gather + {0, inf} masked-min lane select (the
-        # wavefront relaxation's trick). Honest measurement at fleet
-        # scale (64 robots × 60 particles × 1,024 field samples): 67.5 →
-        # 64.1 ms — only ~5%, because unlike the wavefront (whose rows
-        # are shared across lanes) every sample here needs its own row,
-        # so the GATHER COUNT (~3.9M/tick) is unchanged and that count
-        # is what binds the MCL stage. Kept for the small win; the
+        # wavefront relaxation's trick). The gain was small before the
+        # port to the H100 (not re-measured there): unlike the wavefront
+        # (whose rows are shared across lanes) every sample here needs
+        # its own row, so the GATHER COUNT (~3.9M/tick at fleet scale) is
+        # unchanged, and that count bound the MCL stage. The
         # per-tick sample count itself is reference fidelity (the C++
         # measures the full flat+less_sharp clouds per particle,
         # `lidar_measurement_model_likelihood.cpp:96-115`). x + 0.0 == x,
@@ -226,11 +236,11 @@ def sample_nearest_point(field: DistanceField, pts):
 
     This is the gather half of correspondence-cached likelihood scoring:
     the owner is looked up ONCE per feature point (at a reference pose)
-    and every particle then scores against the fixed owner with pure VPU
-    math (see :func:`measure_all_corr` for the distance model)."""
+    and every particle then scores against the fixed owner with pure
+    elementwise math (see :func:`measure_all_corr` for the distance model)."""
     if field.near_pt is None:
         raise ValueError("field built without with_nearest=True")
-    g = (pts - field.origin) / field.res
+    g = (pts - field.origin) * field.inv_res
     dims = jnp.asarray(field.dist.shape, jnp.float32)
     gc = jnp.clip(g, 0.0, dims - 1.0 - 1e-4)
     i = jnp.round(gc).astype(jnp.int32)
@@ -292,7 +302,7 @@ def build_submap_context(map_pts: np.ndarray, ground_pts: np.ndarray,
         map_field=map_field, ground_field=ground_field,
         ground_normal=jnp.asarray(avg_n.reshape(nx, ny, 3)),
         ground_count=jnp.asarray(cnt.reshape(nx, ny)),
-        ground_xy_res=xy_res,
+        ground_xy_res=xy_res, ground_xy_inv_res=_inv(xy_res),
         ground_xy_origin=jnp.asarray(mn, jnp.float32))
 
 
@@ -304,7 +314,10 @@ def _roll_diff(quat, normal):
     up = jnp.asarray([0.0, 0.0, 1.0], jnp.float32)
     axis = jnp.cross(normal, up)
     axis = axis / jnp.maximum(jnp.linalg.norm(axis), 1e-9)
-    ang = -jnp.arccos(jnp.clip(jnp.dot(normal, up), -1.0, 1.0))
+    # HIGHEST: f32 products may otherwise run in TF32 on the GPU
+    ang = -jnp.arccos(jnp.clip(
+        jnp.dot(normal, up, precision=jax.lax.Precision.HIGHEST),
+        -1.0, 1.0))
     s, c = jnp.sin(0.5 * ang), jnp.cos(0.5 * ang)
     q_normal = jnp.concatenate([axis * s, c[None]])
     q_new = quat_normalize(quat_multiply(quat, q_normal))
@@ -316,7 +329,8 @@ def _roll_diff(quat, normal):
 
 def _pos_weight(ctx: SubmapContext, cfg: MCLConfig, pos, quat):
     """`lidar_measurement_model_likelihood.cpp:104-192`."""
-    ij = ((pos[:2] - ctx.ground_xy_origin) / ctx.ground_xy_res).astype(jnp.int32)
+    ij = ((pos[:2] - ctx.ground_xy_origin)
+          * ctx.ground_xy_inv_res).astype(jnp.int32)
     nx, ny = ctx.ground_count.shape
     i = jnp.clip(ij[0], 0, nx - 1)
     j = jnp.clip(ij[1], 0, ny - 1)
@@ -386,14 +400,15 @@ def measure_all_corr(ctx: SubmapContext, cfg: MCLConfig, flat_pts, flat_mask,
     The reference KD-tree-queries the nearest map point per (particle ×
     feature point) (`lidar_measurement_model_likelihood.cpp:196-249`);
     the 'nearest'/'trilinear' modes here do the same via one EDT gather
-    per (particle × point). At fleet scale the GATHER COUNT is what binds
-    the MCL stage (~3.9 M/tick measured ≈ 57 ms). This mode looks the
+    per (particle × point). At fleet scale the GATHER COUNT (~3.9 M per
+    tick) bound the MCL stage before the port to the H100 (not re-measured
+    there). This mode looks the
     correspondence up ONCE per feature point, at the odometry-predicted
     reference pose ``pose0`` — the Voronoi owner of the point's cell via
     :func:`sample_nearest_point` — and every particle then scores the
     EXACT Euclidean distance ``|T_p·x − nn|`` to that fixed owner with
-    pure elementwise math: N_points gathers + N_particles·N_points VPU
-    flops instead of N_particles·N_points gathers.
+    pure elementwise math: N_points gathers + N_particles·N_points
+    elementwise flops instead of N_particles·N_points gathers.
 
     Distance model (point-to-plane with a bounded patch): with Δ =
     ``T_p·x − nn`` and n̂ the owner's surface normal,

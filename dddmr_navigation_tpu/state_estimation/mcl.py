@@ -1,4 +1,4 @@
-"""MCL update tick — the TPU re-design of ``MCL3dlNode``
+"""MCL update tick — the JAX re-design of ``MCL3dlNode``
 (`src/dddmr_mcl_3dl/src/mcl_3dl.cpp:143-680`).
 
 The reference interleaves per-particle lambdas, mutexes, and TF plumbing

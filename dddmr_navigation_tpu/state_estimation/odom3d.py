@@ -1,4 +1,4 @@
-"""3D odometry fusion — TPU re-design of ``dddmr_odom_3d``
+"""3D odometry fusion — JAX re-design of ``dddmr_odom_3d``
 (`src/dddmr_odom_3d/src/odom_3d_example.cpp:35-110`).
 
 Wheel-odometry linear velocity × IMU orientation → 3D odometry. The

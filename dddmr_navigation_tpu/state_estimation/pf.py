@@ -1,4 +1,4 @@
-"""Functional 6DOF particle filter — TPU re-design of the reference's
+"""Functional 6DOF particle filter — JAX re-design of the reference's
 header-only ``mcl_3dl::ParticleFilter`` (`include/mcl_3dl/pf.h:155-450`).
 
 The reference loops a ``std::vector<Particle>`` with per-particle lambdas;
@@ -245,7 +245,9 @@ def covariance(state: PFState):
     drpy = (rpy - mean_rpy[None, :] + jnp.pi) % (2.0 * jnp.pi) - jnp.pi
     d = jnp.concatenate([state.pos - mean_pos[None, :], drpy], axis=-1)
     w = state.prob / jnp.maximum(jnp.sum(state.prob), 1e-30)
-    return (d * w[:, None]).T @ d
+    # HIGHEST: f32 products may otherwise run in TF32 on the GPU
+    return jnp.matmul((d * w[:, None]).T, d,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def resize_particles(state: PFState, m: int) -> PFState:
@@ -269,7 +271,7 @@ def resize_particles(state: PFState, m: int) -> PFState:
 
 def seed_particles_at(positions, yaws) -> PFState:
     """Seed one particle per candidate (global-localization big-N spread:
-    ground nodes × yaw grid — the TPU stand-in for the reference's
+    ground nodes × yaw grid — the JAX stand-in for the reference's
     resize+expand seeding)."""
     from dddmr_navigation_tpu.geometry import quat_from_yaw
     n = positions.shape[0]

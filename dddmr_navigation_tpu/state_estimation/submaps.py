@@ -1,4 +1,4 @@
-"""Pose-graph submaps — the TPU analogue of ``mcl_3dl::SubMaps``
+"""Pose-graph submaps — the JAX analogue of ``mcl_3dl::SubMaps``
 (`src/dddmr_mcl_3dl/src/sub_maps.cpp:87-326`).
 
 Artifact format is reference-compatible (what `MapOptimization::pcdSaver`

@@ -1,7 +1,7 @@
 """Closed-loop local-planner demo: a diff-drive robot follows a straight
 plan through a gap in an obstacle wall, 20 Hz ticks, fully jitted.
 
-The TPU analogue of the reference's interactive playground fixture
+The JAX analogue of the reference's interactive playground fixture
 (`local_planner_play_ground_node.cpp:42-331`): fake plan + synthetic
 obstacles + rollout/critics loop, minus rviz.
 

@@ -1,6 +1,6 @@
 """Live operator viewer over a running NavigationSession.
 
-The TPU-native stand-in for the reference's rviz tooling
+The JAX stand-in for the reference's rviz tooling
 (`src/dddmr_rviz_tools/`): open http://127.0.0.1:8123 in a browser
 (port-forward when remote) to see the map + dGraph heat, the live plan,
 the best rollout, and the robot; LEFT-CLICK anywhere on the map to set a

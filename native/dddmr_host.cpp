@@ -1,7 +1,7 @@
 // dddmr_host: native host-side runtime for dddmr_navigation_tpu.
 //
 // The reference stack's runtime is C++ end-to-end (rclcpp executors, PCL
-// IO, FLANN trees, Channel<T> hand-offs). The TPU build keeps the compute
+// IO, FLANN trees, Channel<T> hand-offs). The JAX build keeps the compute
 // path in XLA, but the host realtime shell around it is native too:
 //
 //   * binary PCD reading (the data-loader role of PCL's loadPCDFile —

@@ -1,5 +1,5 @@
 """Fleet sharding over the virtual 8-device CPU mesh: single-axis
-scenario mesh (parallel/fleet.py) and the 2-level (dcn, ici) multi-host
+scenario mesh (parallel/fleet.py) and the 2-level (hosts, devices) multi-host
 mesh (parallel/multihost.py) — SURVEY.md §2.12 / BASELINE.json configs
 4-5, tested per §4 via forced host-platform devices."""
 import numpy as np
@@ -60,11 +60,11 @@ def test_sharded_fleet_tick_8_devices():
 
 @pytest.mark.slow
 def test_multihost_mesh_matches_single_axis():
-    """The (2 hosts × 4 chips) hierarchical reduction must agree with the
-    flat 8-chip mesh and with an unsharded vmap run."""
+    """The (2 hosts × 4 devices) hierarchical reduction must agree with the
+    flat 8-device mesh and with an unsharded vmap run."""
     cfg, plans, state, obstacles, obs_valid = _tiny_setup(b=16)
     mesh = make_host_mesh(n_hosts=2, devices_per_host=4)
-    assert mesh.shape == {"dcn": 2, "ici": 4}
+    assert mesh.shape == {"hosts": 2, "devices": 4}
     tick = sharded_fleet_tick_multihost(cfg, mesh)
     inputs = host_local_batch(mesh, (plans, state, obstacles, obs_valid))
     vx, wz, codes, costs, fleet_cost = tick(*inputs)
